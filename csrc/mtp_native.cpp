@@ -1,9 +1,9 @@
-// mtp_native: host-side native components for the TPU MTP framework.
+// mtp_native: host-side native components for the MTP framework.
 //
 // The reference's runtime services (neighbor lists, buffered config writing)
 // are C++ inside LAMMPS; these are our native equivalents for the host side
 // of the pipeline (device-side neighbor lists live in ops/neighbors.py as
-// XLA/Pallas programs). Used for initial-configuration setup, slab
+// XLA programs). Used for initial-configuration setup, slab
 // pre-partitioning, active-learning pool construction, and million-atom
 // .cfg streaming where Python formatting is the bottleneck (the reference
 // buffers rows with fmt::memory_buffer, pair_mtp_extrapolation.cpp:401-479).

@@ -2,22 +2,21 @@
 
 The reference computes everything in f64 (pair_mtp.cpp throughout); users
 coming from it often spot-check forces/energies against MLIP-3. This
-framework's equivalent workflow on f64-less TPU hardware: run MD on the
-fp32 fast path, and re-evaluate snapshots with the df32 (double-float)
-backend — the same model, the same neighbor list, ~49-bit arithmetic,
-measured 9.1e-8 eV/A max force deviation from the f64 oracle at the 32k
-bench config (PARITY.md §2a) at ~10x the cost of one force eval.
+framework's equivalent workflow: run MD on the fp32 fast path, and
+re-evaluate snapshots with the df32 (double-float) backend: the same
+model, the same neighbor list, ~49-bit arithmetic from f32 operations.
 
 Run (CPU, ~2 min):
     PYTHONPATH=. python examples/accuracy_validation.py
 
-On TPU the same script validates the production kernels end-to-end.
+On a GPU the same script validates the production path end-to-end.
 """
 
 import os
+import tempfile
 
 # the df32 graphs hit a pathological LLVM path in XLA:CPU's new fusion
-# emitters (see ops/moments_df.py); harmless on TPU
+# emitters (see ops/moments_df.py); a CPU-only flag
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_cpu_use_fusion_emitters=false"
 )
@@ -26,18 +25,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mtp_tpu.io.basis_gen import make_mtp
-from mtp_tpu.io.mtp_file import save_mtp
-from mtp_tpu.md.simulation import Simulation, make_lattice
-from mtp_tpu.md.state import init_state, thermalize
-from mtp_tpu.models.mtp import MTPModel
-from mtp_tpu.ops.neighbors import grid_shape
+TMP = tempfile.mkdtemp(prefix="accuracy_validation_")
+
+from mtp_jax.io.basis_gen import make_mtp
+from mtp_jax.io.mtp_file import save_mtp
+from mtp_jax.md.simulation import Simulation, make_lattice
+from mtp_jax.md.state import init_state, thermalize
+from mtp_jax.models.mtp import MTPModel
+from mtp_jax.ops.neighbors import grid_shape
 
 
 def main():
     # mint a level-12 potential (or MTPModel.load("your.mtp"))
-    save_mtp("/tmp/val.mtp", make_mtp(12, species_count=1, seed=0))
-    model = MTPModel.load("/tmp/val.mtp", dtype=jnp.float32)
+    save_mtp(os.path.join(TMP, "val.mtp"), make_mtp(12, species_count=1, seed=0))
+    model = MTPModel.load(os.path.join(TMP, "val.mtp"), dtype=jnp.float32)
 
     pos, types, cell = make_lattice("fcc", 4.0, (5, 5, 5))
     n = len(pos)
@@ -56,7 +57,7 @@ def main():
     grid = grid_shape(np.asarray(state.cell), model.cutoff + 0.5)
     prod = Simulation(model, max_neighbors=64, skin=0.5)
     acc = Simulation(model, max_neighbors=64, skin=0.5,
-                     backend="df32", window=False)
+                     backend="df32")
     nl_p = prod.rebuild(state, grid=grid, max_neighbors=64)
     nl_a = acc.rebuild(state, grid=grid, max_neighbors=64)
     f_prod = np.asarray(prod.refresh_forces(state, nl_p).forces, np.float64)

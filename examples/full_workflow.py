@@ -12,10 +12,12 @@ MLIP-3-trained potentials; here every stage is in-framework):
 Runs on CPU in ~2 minutes:   JAX_PLATFORMS=cpu python examples/full_workflow.py
 """
 
+import os
+import tempfile
+
 import jax
 
-# f64 workflow -> CPU (override with MTP_EXAMPLE_PLATFORM=tpu + f32 edits)
-import os
+# f64 workflow -> CPU (override with MTP_EXAMPLE_PLATFORM=gpu + f32 edits)
 
 jax.config.update("jax_platforms", os.environ.get("MTP_EXAMPLE_PLATFORM", "cpu"))
 jax.config.update("jax_enable_x64", True)
@@ -23,23 +25,25 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from mtp_tpu.al.driver import (
+TMP = tempfile.mkdtemp(prefix="full_workflow_")
+
+from mtp_jax.al.driver import (
     BreakThresholdExceeded,
     ExtrapolationMonitor,
     run_with_extrapolation,
 )
-from mtp_tpu.al.grades import candidate_vectors
-from mtp_tpu.al.maxvol import build_mvs
-from mtp_tpu.io.basis_gen import make_mtp
-from mtp_tpu.io.cfg_file import Config, read_cfgs
-from mtp_tpu.io.mtp_file import save_mtp
-from mtp_tpu.md.output import ThermoLogger
-from mtp_tpu.md.simulation import Simulation, make_lattice
-from mtp_tpu.md.state import init_state, thermalize
-from mtp_tpu.models.mtp import MTPCoeffs, MTPModel
-from mtp_tpu.ops.neighbors import build_neighbor_list_bruteforce
-from mtp_tpu.train.fit import fit, make_dataset
-from mtp_tpu.utils import golden
+from mtp_jax.al.grades import candidate_vectors
+from mtp_jax.al.maxvol import build_mvs
+from mtp_jax.io.basis_gen import make_mtp
+from mtp_jax.io.cfg_file import Config, read_cfgs
+from mtp_jax.io.mtp_file import save_mtp
+from mtp_jax.md.output import ThermoLogger
+from mtp_jax.md.simulation import Simulation, make_lattice
+from mtp_jax.md.state import init_state, thermalize
+from mtp_jax.models.mtp import MTPCoeffs, MTPModel
+from mtp_jax.ops.neighbors import build_neighbor_list_bruteforce
+from mtp_jax.train.fit import fit, make_dataset
+from mtp_jax.utils import golden
 
 rng = np.random.default_rng(0)
 
@@ -78,11 +82,11 @@ for c in configs:
         jnp.asarray(c.types, jnp.int32), nl.idx, jnp.asarray(c.cell))
     rows.append(np.asarray(b))
 student_mtp.mvs = build_mvs(np.concatenate(rows, 0), mode="neighborhood")
-save_mtp("/tmp/student.mtp", student_mtp)
-print(f"[3] wrote /tmp/student.mtp (P={student_mtp.coeff_count}, MVS trailer)")
+save_mtp(os.path.join(TMP, "student.mtp"), student_mtp)
+print(f"[3] wrote {TMP}/student.mtp (P={student_mtp.coeff_count}, MVS trailer)")
 
 # ---- 4. MD with MLIP-3-style extrapolation monitoring ----
-model = MTPModel.load("/tmp/student.mtp", dtype=jnp.float64)
+model = MTPModel.load(os.path.join(TMP, "student.mtp"), dtype=jnp.float64)
 state = thermalize(
     jax.random.PRNGKey(1),
     init_state(pos0, types, np.full(len(pos0), 58.693), cell, dtype=jnp.float64),
@@ -90,7 +94,7 @@ state = thermalize(
 )
 sim = Simulation(model, max_neighbors=48, skin=0.6, steps_per_rebuild=10)
 mon = ExtrapolationMonitor(model, select_threshold=2.0, break_threshold=1000.0,
-                           output_path="/tmp/preselected.cfg", max_neighbors=48)
+                           output_path=os.path.join(TMP, "preselected.cfg"), max_neighbors=48)
 import sys
 thermo = ThermoLogger(("step", "temp", "pe", "max_grade"), every=20, stream=sys.stdout)
 try:
@@ -106,6 +110,6 @@ finally:
     mon.close()
 
 # ---- 5. harvest the preselected configurations for re-labeling ----
-selected = read_cfgs("/tmp/preselected.cfg")
+selected = read_cfgs(os.path.join(TMP, "preselected.cfg"))
 print(f"[5] {len(selected)} configurations preselected for re-labeling "
       f"(grades > {mon.select_threshold})")

@@ -2,16 +2,17 @@
 
 The reference ships one smoke input (README.md:124-147): a bcc potassium
 box, every pair-style variant selectable by uncommenting, `velocity
-create`, `fix nve`, `run 100`. This is the same workflow through mtp_tpu —
+create`, `fix nve`, `run 100`. This is the same workflow through mtp_jax —
 each LAMMPS command is quoted above its equivalent, including the
 `mtp/extrapolation <file> <out.cfg> <select> <break>` variant and a
 `read_data`/`write_data` round trip.
 
 Runs on CPU in ~2 min:  JAX_PLATFORMS=cpu python examples/lammps_migration.py
-On the TPU it is the same code with dtype=jnp.float32.
+On a GPU it is the same code with dtype=jnp.float32.
 """
 
 import os
+import tempfile
 
 import jax
 
@@ -21,28 +22,30 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from mtp_tpu.al.driver import (
+TMP = tempfile.mkdtemp(prefix="lammps_migration_")
+
+from mtp_jax.al.driver import (
     BreakThresholdExceeded,
     ExtrapolationMonitor,
     run_with_extrapolation,
 )
-from mtp_tpu.al.grades import candidate_vectors
-from mtp_tpu.al.maxvol import build_mvs
-from mtp_tpu.io.basis_gen import make_mtp
-from mtp_tpu.io.lammps_data import read_lammps_data, write_lammps_data
-from mtp_tpu.io.mtp_file import save_mtp
-from mtp_tpu.md.output import ThermoLogger
-from mtp_tpu.md.simulation import Simulation, make_lattice
-from mtp_tpu.md.state import init_state, temperature_of, thermalize
-from mtp_tpu.models.mtp import MTPModel
-from mtp_tpu.ops.neighbors import build_neighbor_list_bruteforce
+from mtp_jax.al.grades import candidate_vectors
+from mtp_jax.al.maxvol import build_mvs
+from mtp_jax.io.basis_gen import make_mtp
+from mtp_jax.io.lammps_data import read_lammps_data, write_lammps_data
+from mtp_jax.io.mtp_file import save_mtp
+from mtp_jax.md.output import ThermoLogger
+from mtp_jax.md.simulation import Simulation, make_lattice
+from mtp_jax.md.state import init_state, temperature_of, thermalize
+from mtp_jax.models.mtp import MTPModel
+from mtp_jax.ops.neighbors import build_neighbor_list_bruteforce
 
 DT = 0.001  # `units metal`: ps, A, eV (the framework's native units)
 
 # -- the reference needs an MLIP-3-trained potential file; we mint a
 #    potassium-shaped one (bcc a=5.28 -> first neighbor 4.57 A) so the
 #    example is self-contained. A real .mtp from MLIP-3 loads the same way.
-mtp_path = "/tmp/potassium_demo.mtp"
+mtp_path = os.path.join(TMP, "potassium_demo.mtp")
 mdata = make_mtp(8, species_count=1, seed=0,
                  min_dist=2.4, max_dist=6.0, r0=4.57, well_depth=0.05)
 save_mtp(mtp_path, mdata)
@@ -56,7 +59,7 @@ pos, types, cell = make_lattice("bcc", 5.28, (3, 3, 3))
 # mass 1 39.0983
 masses = np.full(len(pos), 39.0983)
 
-# pair_style mtp path/to/mtp/file        (mtp/kk: same engine, TPU kernels)
+# pair_style mtp path/to/mtp/file        (mtp/kk: same engine, GPU path)
 # pair_coeff * *                         (not required -- nor here)
 model = MTPModel.load(mtp_path, dtype=jnp.float64)
 sim = Simulation(model, max_neighbors=40, skin=0.6, steps_per_rebuild=10)
@@ -78,10 +81,10 @@ state, _ = sim.run(state, 100, ensemble="nve", dt=DT, observer=thermo)
 print(f"after 100 NVE steps: T = {float(temperature_of(state)):.1f} K")
 
 # write_data box.data  /  read_data box.data (migrate existing LAMMPS boxes)
-write_lammps_data("/tmp/potassium.data", np.asarray(state.positions), types,
+write_lammps_data(os.path.join(TMP, "potassium.data"), np.asarray(state.positions), types,
                   masses, np.asarray(cell),
                   velocities=np.asarray(state.velocities))
-d = read_lammps_data("/tmp/potassium.data")
+d = read_lammps_data(os.path.join(TMP, "potassium.data"))
 print(f"data-file round trip: {len(d.positions)} atoms, "
       f"{d.type_masses[0]:.4f} amu")
 
@@ -104,7 +107,7 @@ model_al = MTPModel.load(mtp_path, dtype=jnp.float64)
 sim_al = Simulation(model_al, max_neighbors=40, skin=0.6, steps_per_rebuild=10)
 monitor = ExtrapolationMonitor(
     model_al, select_threshold=2.0, break_threshold=10.0,
-    output_path="/tmp/pre.cfg", max_neighbors=40,
+    output_path=os.path.join(TMP, "pre.cfg"), max_neighbors=40,
 )
 # fix pair 10 ... extrapolation 1  +  thermo_style custom step c_max_grade[1]
 try:
@@ -116,5 +119,5 @@ except BreakThresholdExceeded as e:
     print(f"break threshold hit: {e}")
 finally:
     monitor.close()
-n_sel = sum(1 for line in open("/tmp/pre.cfg") if line.startswith("BEGIN_CFG"))
-print(f"{n_sel} preselected configuration(s) -> /tmp/pre.cfg")
+n_sel = sum(1 for line in open(os.path.join(TMP, "pre.cfg")) if line.startswith("BEGIN_CFG"))
+print(f"{n_sel} preselected configuration(s) -> {TMP}/pre.cfg")

@@ -1,14 +1,14 @@
-"""Multi-chip MD with the full single-chip output surface.
+"""Multi-device MD with the full single-device output surface.
 
 The reference's thermo/dump/AL plumbing is MPI-rank-transparent (LAMMPS
 gathers per-atom data and reduces scalars behind the scenes). This example
-is the mtp_tpu equivalent on a device mesh:
+is the mtp_jax equivalent on a device mesh:
 
  1. partition an fcc box into slabs over an 8-(virtual-)device mesh,
- 2. run NVT blocks on the sharded window engine (`ShardedSimulation.run`
+ 2. run NVT blocks on the sharded engine (`ShardedSimulation.run`
     with automatic overflow/staleness recovery),
  3. log thermo rows and dump extended-XYZ frames through the id-ordered
-    gather (`gather_md_state` — every single-chip writer works unchanged),
+    gather (`gather_md_state`: every single-device writer works unchanged),
  4. monitor extrapolation grades with the rank-local fused AL path
     (`run_sharded_with_extrapolation`), and
  5. checkpoint the gathered state.
@@ -20,6 +20,7 @@ Runs on CPU in ~2 min:
 
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
@@ -35,26 +36,26 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from mtp_tpu.al.driver import (
+from mtp_jax.al.driver import (
     ShardedExtrapolationMonitor,
     run_sharded_with_extrapolation,
 )
-from mtp_tpu.al.grades import candidate_vectors
-from mtp_tpu.al.maxvol import build_mvs
-from mtp_tpu.io.basis_gen import make_mtp
-from mtp_tpu.md.output import ThermoLogger, XYZDumpWriter, save_checkpoint
-from mtp_tpu.md.simulation import make_lattice
-from mtp_tpu.md.state import init_state, thermalize
-from mtp_tpu.models.mtp import MTPModel
-from mtp_tpu.ops.neighbors import build_neighbor_list_bruteforce, grid_shape
-from mtp_tpu.parallel.domain import partition_slabs
-from mtp_tpu.parallel.observables import (
+from mtp_jax.al.grades import candidate_vectors
+from mtp_jax.al.maxvol import build_mvs
+from mtp_jax.io.basis_gen import make_mtp
+from mtp_jax.md.output import ThermoLogger, XYZDumpWriter, save_checkpoint
+from mtp_jax.md.simulation import make_lattice
+from mtp_jax.md.state import init_state, thermalize
+from mtp_jax.models.mtp import MTPModel
+from mtp_jax.ops.neighbors import build_neighbor_list_bruteforce, grid_shape
+from mtp_jax.parallel.domain import partition_slabs
+from mtp_jax.parallel.observables import (
     gather_md_state,
     sharded_pressure,
     sharded_temperature,
 )
-from mtp_tpu.parallel.sharded_md import ShardedState, make_mesh
-from mtp_tpu.parallel.sharded_window import ShardedSimulation
+from mtp_jax.parallel.sharded_md import ShardedState, make_mesh
+from mtp_jax.parallel.sharded_window import ShardedSimulation
 
 N_DEV = 8
 SKIN = 0.3
@@ -102,7 +103,8 @@ sim = ShardedSimulation(
 thermo = ThermoLogger(
     columns=("step", "temp", "pe", "etotal", "press"), stream=sys.stdout
 )
-dump = XYZDumpWriter("/tmp/multichip_traj.xyz", species=("Ni",))
+OUT = tempfile.mkdtemp(prefix="multichip_md_")
+dump = XYZDumpWriter(os.path.join(OUT, "traj.xyz"), species=("Ni",))
 n_done = 0
 
 
@@ -112,7 +114,7 @@ def observer(s):
     # cheap device-side scalars (no gather): great for high-rate logging
     t_dev = float(sharded_temperature(s, len(pos)))
     p_dev = float(sharded_pressure(s))
-    # full single-chip output surface via the id-ordered gather
+    # full single-device output surface via the id-ordered gather
     gst = gather_md_state(s, len(pos), step=n_done)
     thermo(gst)
     dump.write(gst, forces=True)
@@ -126,9 +128,9 @@ sstate, flags = sim.run(
 )
 assert not bool(flags.any())
 dump.close()
-print(f"dumped {n_done // sim.steps_per_rebuild} frames -> /tmp/multichip_traj.xyz")
+print(f"dumped {n_done // sim.steps_per_rebuild} frames -> {OUT}/traj.xyz")
 
-# -- grades on the window engine (rank-local fused AL) ------------------------
+# -- grades on the sharded engine (rank-local fused AL) -----------------------
 mon = ShardedExtrapolationMonitor(
     model, mesh, capacity=part.capacity,
     grid=grid_shape(cell, model.cutoff + SKIN), n_atoms=len(pos),
@@ -142,6 +144,6 @@ print(f"max extrapolation grade: {mon.max_grade:.4f} "
 
 # -- checkpoint the gathered state -------------------------------------------
 gst = gather_md_state(sstate, len(pos), step=25)
-save_checkpoint("/tmp/multichip_ckpt.npz", gst)
-print("checkpoint -> /tmp/multichip_ckpt.npz")
+save_checkpoint(os.path.join(OUT, "ckpt.npz"), gst)
+print(f"checkpoint -> {OUT}/ckpt.npz")
 print("OK")

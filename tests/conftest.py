@@ -1,6 +1,10 @@
-"""Test configuration: run on CPU with 8 virtual devices (the TPU-world analog
-of multi-node testing without a cluster; SURVEY.md §4) and float64 enabled so
-golden-parity checks are exact."""
+"""Test configuration: run on CPU with 8 virtual devices (multi-device
+testing without a cluster; SURVEY.md §4) and float64 enabled so
+golden-parity checks are exact.
+
+Tests that need an NVIDIA GPU carry the `gpu` marker and take the `gpu`
+fixture, which skips them where JAX finds no GPU; chip_smoke.py runs the
+same checks on the card."""
 
 import os
 
@@ -9,7 +13,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 # emitters spin for tens of minutes in LLVM on the df32 path's error-free-
 # transform chains (one level-8 module measured >18 min -> 5 s with the
 # legacy emitters; the hang sits between a fused kernel's ir-no-opt and
-# ir-with-opt dumps). CPU-only flag; the TPU production path is unaffected.
+# ir-with-opt dumps). CPU-only flag; the GPU path is unaffected.
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "")
     + " --xla_force_host_platform_device_count=8"
@@ -24,7 +28,25 @@ jax.config.update("jax_enable_x64", True)
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
-from mtp_tpu.io.basis_gen import make_mtp  # noqa: E402
+from mtp_jax.io.basis_gen import make_mtp  # noqa: E402
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU; skips elsewhere (run on the card by "
+        "chip_smoke.py)",
+    )
+
+
+@pytest.fixture
+def gpu():
+    """The first GPU device; skips the test where there is none. Decided
+    when the test runs, never at import or collection."""
+    devs = jax.devices()
+    if devs[0].platform != "gpu":
+        pytest.skip(f"needs a GPU; JAX runs on {devs[0].platform}")
+    return devs[0]
 
 
 @pytest.fixture(autouse=True, scope="module")

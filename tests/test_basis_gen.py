@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from mtp_tpu.io.basis_gen import generate_basis, make_mtp
-from mtp_tpu.utils import golden
+from mtp_jax.io.basis_gen import generate_basis, make_mtp
+from mtp_jax.utils import golden
 
 
 @pytest.mark.parametrize("level", [6, 8, 12])
@@ -77,7 +77,7 @@ def test_basis_linearly_independent():
 def test_wave_count_small():
     """Generated DAGs stay shallow (the reference's block engine requires <=3
     waves for MLIP templates; ours should match for star+product bases)."""
-    from mtp_tpu.ops.moments import MTPSchedule
+    from mtp_jax.ops.moments import MTPSchedule
 
     for level in (8, 12):
         b = generate_basis(level)

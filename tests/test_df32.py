@@ -1,8 +1,8 @@
 """Double-float (f32x2) arithmetic + the df32 accuracy-mode force path.
 
-The df32 backend exists to cross the <1e-6 force-parity gate on TPU hardware
-with no native f64 (PARITY.md: the fp32 error floor lives in the per-pair
-backward-DAG arithmetic; only higher-precision terms can remove it). These
+The df32 backend crosses the <1e-6 force-parity gate from f32 arithmetic
+(the fp32 error floor lives in the per-pair backward-DAG arithmetic; only
+higher-precision terms can remove it). These
 tests validate the arithmetic against f64 and the end-to-end path against
 the f64 golden oracle, from identical f32-rounded inputs.
 """
@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mtp_tpu.models.mtp import MTPModel, mtp_energy_forces
-from mtp_tpu.ops import df32 as df
-from mtp_tpu.utils import golden
+from mtp_jax.models.mtp import MTPModel, mtp_energy_forces
+from mtp_jax.ops import df32 as df
+from mtp_jax.utils import golden
 
 from conftest import scatter_cluster
 from test_model import dense_neighbors
@@ -144,9 +144,9 @@ def test_df32_simulation_wiring(mtp_level8_2spec, rng):
     the f32 path against the f64 evaluation of the same frozen list."""
     import jax
 
-    from mtp_tpu.md.simulation import Simulation, make_lattice
-    from mtp_tpu.md.state import init_state, thermalize
-    from mtp_tpu.ops.neighbors import grid_shape
+    from mtp_jax.md.simulation import Simulation, make_lattice
+    from mtp_jax.md.state import init_state, thermalize
+    from mtp_jax.ops.neighbors import grid_shape
 
     m = mtp_level8_2spec
     model32 = MTPModel.from_data(m, dtype=jnp.float32)
@@ -160,8 +160,7 @@ def test_df32_simulation_wiring(mtp_level8_2spec, rng):
     grid = grid_shape(np.asarray(cell), model32.cutoff + 0.5)
 
     def forces(backend, model, st):
-        sim = Simulation(model, max_neighbors=48, skin=0.5, backend=backend,
-                         window=False)
+        sim = Simulation(model, max_neighbors=48, skin=0.5, backend=backend)
         nl = sim.rebuild(st, grid=grid, max_neighbors=48)
         assert not bool(nl.overflow)
         out = sim.refresh_forces(st, nl)

@@ -10,12 +10,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from mtp_tpu.io.lammps_data import (
+from mtp_jax.io.lammps_data import (
     LammpsData,
     read_lammps_data,
     write_lammps_data,
 )
-from mtp_tpu.md.simulation import make_lattice
+from mtp_jax.md.simulation import make_lattice
 
 
 def test_roundtrip_orthorhombic(tmp_path):
@@ -119,11 +119,11 @@ def test_writer_rejects_non_lammps_frame(tmp_path):
 
 def test_md_from_data_file(tmp_path):
     """A data file drives the same force evaluation as direct arrays."""
-    from mtp_tpu.io.basis_gen import make_mtp
-    from mtp_tpu.md.simulation import Simulation
-    from mtp_tpu.md.state import init_state
-    from mtp_tpu.models.mtp import MTPModel
-    from mtp_tpu.ops.neighbors import grid_shape
+    from mtp_jax.io.basis_gen import make_mtp
+    from mtp_jax.md.simulation import Simulation
+    from mtp_jax.md.state import init_state
+    from mtp_jax.models.mtp import MTPModel
+    from mtp_jax.ops.neighbors import grid_shape
 
     model = MTPModel.from_data(make_mtp(8, species_count=1, seed=0),
                                dtype=jnp.float64)

@@ -5,16 +5,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mtp_tpu.md import integrators as itg
-from mtp_tpu.md.simulation import Simulation, make_lattice
-from mtp_tpu.md.state import (
+from mtp_jax.md import integrators as itg
+from mtp_jax.md.simulation import Simulation, make_lattice
+from mtp_jax.md.state import (
     init_state,
     kinetic_energy,
     pressure_of,
     temperature_of,
     thermalize,
 )
-from mtp_tpu.models.mtp import MTPModel
+from mtp_jax.models.mtp import MTPModel
 
 
 @pytest.fixture(scope="module")

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mtp_tpu.models.mtp import MTPModel, mtp_energy, mtp_energy_forces
-from mtp_tpu.ops.neighbors import build_neighbor_list_bruteforce
-from mtp_tpu.utils import golden
+from mtp_jax.models.mtp import MTPModel, mtp_energy, mtp_energy_forces
+from mtp_jax.ops.neighbors import build_neighbor_list_bruteforce
+from mtp_jax.utils import golden
 
 from conftest import scatter_cluster
 

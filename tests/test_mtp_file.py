@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from mtp_tpu.io.basis_gen import make_mtp
-from mtp_tpu.io.mtp_file import (
+from mtp_jax.io.basis_gen import make_mtp
+from mtp_jax.io.mtp_file import (
     MTPFileError,
     MVSData,
     dumps_mtp,
@@ -127,14 +127,14 @@ def test_mlip3_dialect_fixture_parity():
 
     import jax.numpy as jnp
 
-    from mtp_tpu.al.grades import candidate_vectors, nbh_grades
-    from mtp_tpu.md.simulation import make_lattice
-    from mtp_tpu.models.mtp import MTPModel, mtp_energy_forces
-    from mtp_tpu.ops.neighbors import build_neighbor_list_bruteforce
-    from mtp_tpu.utils import golden
+    from mtp_jax.al.grades import candidate_vectors, nbh_grades
+    from mtp_jax.md.simulation import make_lattice
+    from mtp_jax.models.mtp import MTPModel, mtp_energy_forces
+    from mtp_jax.ops.neighbors import build_neighbor_list_bruteforce
+    from mtp_jax.utils import golden
 
     path = os.path.join(os.path.dirname(__file__), "data", "mlip3_dialect_level8.mtp")
-    from mtp_tpu.io.mtp_file import load_mtp
+    from mtp_jax.io.mtp_file import load_mtp
 
     m = load_mtp(path)
     assert m.potential_name == "MTP1m"

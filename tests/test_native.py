@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from mtp_tpu.utils import native
+from mtp_jax.utils import native
 
 
 pytestmark = pytest.mark.skipif(

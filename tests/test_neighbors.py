@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mtp_tpu.ops.neighbors import (
+from mtp_jax.ops.neighbors import (
     build_neighbor_list,
     build_neighbor_list_bruteforce,
     check_cell,
@@ -99,10 +99,10 @@ def test_needs_rebuild(rng):
 
 
 def test_mirror_permutation_large_n():
-    """n > 46340: the composite int32 key would overflow (and int64 silently
-    truncates on TPU), so mirror_permutation switches to a two-key
+    """n > 46340: the composite int32 key would overflow (and int64 is
+    unavailable with x64 off), so mirror_permutation switches to a two-key
     lexicographic sort — verify it still maps every pair to its reverse."""
-    from mtp_tpu.ops.neighbors import mirror_permutation
+    from mtp_jax.ops.neighbors import mirror_permutation
 
     n, j = 50176, 4
     rows = np.arange(n, dtype=np.int32)[:, None]

@@ -8,15 +8,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mtp_tpu.md.integrators import nhc_init
-from mtp_tpu.md.output import (
+from mtp_jax.md.integrators import nhc_init
+from mtp_jax.md.output import (
     ThermoLogger,
     XYZDumpWriter,
     load_checkpoint,
     save_checkpoint,
 )
-from mtp_tpu.md.simulation import make_lattice
-from mtp_tpu.md.state import init_state, thermalize
+from mtp_jax.md.simulation import make_lattice
+from mtp_jax.md.state import init_state, thermalize
 
 
 def _state(rng):
@@ -78,7 +78,7 @@ def test_checkpoint_no_aux(tmp_path, rng):
 
 def test_cfg_plusstress_roundtrip(rng):
     """PlusStress section round-trips (MLIP training sets carry stress)."""
-    from mtp_tpu.io.cfg_file import format_cfg, parse_cfgs
+    from mtp_jax.io.cfg_file import format_cfg, parse_cfgs
 
     cell = np.diag([10.0, 11.0, 12.0])
     pos = rng.uniform(0, 10, (4, 3))

@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mtp_tpu.md.simulation import Simulation, make_lattice
-from mtp_tpu.md.state import init_state, kinetic_energy, thermalize
-from mtp_tpu.models.mtp import MTPModel, mtp_energy_forces
-from mtp_tpu.ops.neighbors import build_neighbor_list_bruteforce, grid_shape
-from mtp_tpu.parallel.domain import partition_slabs
-from mtp_tpu.parallel.sharded_md import (
+from mtp_jax.md.simulation import Simulation, make_lattice
+from mtp_jax.md.state import init_state, kinetic_energy, thermalize
+from mtp_jax.models.mtp import MTPModel, mtp_energy_forces
+from mtp_jax.ops.neighbors import build_neighbor_list_bruteforce, grid_shape
+from mtp_jax.parallel.domain import partition_slabs
+from mtp_jax.parallel.sharded_md import (
     ShardedState,
     compute_sharded_forces,
     make_mesh,
@@ -208,10 +208,10 @@ def test_partition_rejects_thin_slabs(wide_system):
 
 def test_sharded_grades_match_single_chip(wide_system, rng):
     """Multi-chip grade collectives (pmax/psum) vs single-chip AL grades."""
-    from mtp_tpu.al.grades import candidate_vectors, cfg_grade, nbh_grades
-    from mtp_tpu.al.maxvol import build_mvs
-    from mtp_tpu.io.mtp_file import dumps_mtp, loads_mtp
-    from mtp_tpu.parallel.sharded_md import make_sharded_grades
+    from mtp_jax.al.grades import candidate_vectors, cfg_grade, nbh_grades
+    from mtp_jax.al.maxvol import build_mvs
+    from mtp_jax.io.mtp_file import dumps_mtp, loads_mtp
+    from mtp_jax.parallel.sharded_md import make_sharded_grades
 
     model, pos, types, masses, cell = wide_system
 
@@ -227,7 +227,7 @@ def test_sharded_grades_match_single_chip(wide_system, rng):
             jnp.asarray(types, jnp.int32), nl.idx, jnp.asarray(cell),
         )
         rows.append(np.asarray(b))
-    import mtp_tpu.models.mtp as mtp_mod
+    import mtp_jax.models.mtp as mtp_mod
 
     mvs = build_mvs(np.concatenate(rows, 0), mode="neighborhood")
     model_al = dataclasses.replace(
@@ -247,7 +247,7 @@ def test_sharded_grades_match_single_chip(wide_system, rng):
     ref = np.asarray(nbh_grades(b, model_al.inverse_active_set))
 
     # sharded
-    from mtp_tpu.ops.neighbors import grid_shape
+    from mtp_jax.ops.neighbors import grid_shape
 
     mesh, part, sstate = _sharded_setup(model_al, pos, types, masses, cell)
     grades_fn = make_sharded_grades(
@@ -265,10 +265,10 @@ def test_sharded_grades_y_axis(wide_system, rng):
     """Grades decomposed along a non-x axis: the halo shell selection must
     follow slab_axis (round-2 weak item: axis 0 was hardcoded, a y/z
     decomposition got silently wrong halos)."""
-    from mtp_tpu.al.grades import candidate_vectors, nbh_grades
-    from mtp_tpu.al.maxvol import build_mvs
-    from mtp_tpu.ops.neighbors import grid_shape
-    from mtp_tpu.parallel.sharded_md import make_sharded_grades
+    from mtp_jax.al.grades import candidate_vectors, nbh_grades
+    from mtp_jax.al.maxvol import build_mvs
+    from mtp_jax.ops.neighbors import grid_shape
+    from mtp_jax.parallel.sharded_md import make_sharded_grades
 
     model, pos, types, masses, cell = wide_system
 
@@ -432,10 +432,10 @@ def test_sharded_al_end_to_end(wide_system, rng, tmp_path):
     """Sharded MD + sharded grade collectives + id-ordered host gather +
     preselected-cfg stream with flush-before-break (VERDICT round-1 item 8,
     reference pair_mtp_extrapolation.cpp:401-479)."""
-    from mtp_tpu.al.driver import BreakThresholdExceeded, ShardedExtrapolationMonitor
-    from mtp_tpu.al.grades import candidate_vectors
-    from mtp_tpu.al.maxvol import build_mvs
-    from mtp_tpu.io.cfg_file import read_cfgs
+    from mtp_jax.al.driver import BreakThresholdExceeded, ShardedExtrapolationMonitor
+    from mtp_jax.al.grades import candidate_vectors
+    from mtp_jax.al.maxvol import build_mvs
+    from mtp_jax.io.cfg_file import read_cfgs
 
     model, pos, types, masses, cell = wide_system
     rows = []
@@ -509,7 +509,7 @@ def test_sharded_al_end_to_end(wide_system, rng, tmp_path):
 def test_cfg_triclinic_lower_triangular(rng):
     """format_cfg rotates arbitrary cells into the LAMMPS prd/tilt frame the
     reference emits (round-1 VERDICT weak item 6)."""
-    from mtp_tpu.io.cfg_file import lammps_lower_triangular, parse_cfgs, format_cfg
+    from mtp_jax.io.cfg_file import lammps_lower_triangular, parse_cfgs, format_cfg
 
     cell = np.array([[10.0, 1.0, 0.5], [0.7, 11.0, 0.3], [0.2, 0.4, 12.0]])
     pos = rng.uniform(0, 10, (6, 3))
@@ -530,27 +530,3 @@ def test_cfg_triclinic_lower_triangular(rng):
         cfg.positions[:, None] - cfg.positions[None, :], axis=-1
     )
     np.testing.assert_allclose(d_new, d_orig, atol=1e-4)
-
-
-def test_sharded_pallas_backend_parity(wide_system):
-    """The sharded block with backend='pallas' (interpreted on CPU) must
-    match the XLA backend (VERDICT round-1 item 4: fast-path-equal)."""
-    model, pos, types, masses, cell = wide_system
-    mesh, part, sstate = _sharded_setup(model, pos, types, masses, cell)
-    grid = grid_shape(cell, model.cutoff)
-    out_x, fx = compute_sharded_forces(
-        model, mesh, capacity=part.capacity, max_neighbors=48, grid=grid,
-        backend="xla",
-    )(sstate)
-    assert not bool(fx.any())
-    out_p, fp = compute_sharded_forces(
-        model, mesh, capacity=part.capacity, max_neighbors=48, grid=grid,
-        backend="pallas",
-    )(sstate)
-    assert not bool(fp.any())
-    assert float(out_p.potential_energy) == pytest.approx(
-        float(out_x.potential_energy), abs=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_p.forces), np.asarray(out_x.forces), atol=1e-6
-    )

@@ -1,8 +1,10 @@
-"""Sharded window-kernel MD (parallel/sharded_window.py): the single-chip
-Pallas pipeline running rank-local under shard_map must reproduce the
-single-chip trajectory — NVE/NVT/NPT, with migration, halos, and both
-Newton give-back modes (in-kernel + mirror gather). Kernels run in
-interpreter mode on CPU.
+"""Sharded MD (parallel/sharded_window.py): the single-device force path
+running rank-local under shard_map must reproduce the single-device
+trajectory (NVE/NVT/NPT, with migration, halos and the cross-shard Newton
+give-back). Each trajectory test runs the sharded engine in float64, where
+it must match the float64 single-device run to round-off, and in float32,
+the dtype the GPU runs, against the same float64 reference under the
+tolerances of `_TOL` below.
 
 This is the multi-chip analog of the reference's host-fallback cross-check
 (pair_mtp_kokkos.cpp:200-205): same input, independent paths, same answer.
@@ -13,15 +15,39 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mtp_tpu.md.simulation import Simulation, make_lattice
-from mtp_tpu.md.state import init_state, thermalize
-from mtp_tpu.models.mtp import MTPModel
-from mtp_tpu.ops.neighbors import grid_shape
-from mtp_tpu.parallel.domain import partition_slabs
-from mtp_tpu.parallel.sharded_md import ShardedState, make_mesh
-from mtp_tpu.parallel.sharded_window import ShardedSimulation
+from mtp_jax.md.simulation import Simulation, make_lattice
+from mtp_jax.md.state import init_state, thermalize
+from mtp_jax.models.mtp import MTPModel
+from mtp_jax.ops.neighbors import grid_shape
+from mtp_jax.parallel.domain import partition_slabs
+from mtp_jax.parallel.sharded_md import ShardedState, make_mesh
+from mtp_jax.parallel.sharded_window import ShardedSimulation
 
 SKIN = 0.3
+
+# float32 vs the float64 reference after 20 steps of dt = 1 fs. Force
+# errors of float32 moments are ~1e-5 eV/A; they integrate to ~1e-6 A of
+# position drift over 20 fs. The bounds keep ~10x headroom over what the
+# CPU measures and stay below the on-device gates (5e-4 eV/A forces,
+# 1e-6 eV/atom energies).
+_TOL = {
+    "float64": dict(pos=1e-10, force=1e-10, energy=1e-9, cell=1e-12,
+                    thermo=1e-12),
+    "float32": dict(pos=2e-5, force=2e-4, energy=2e-3, cell=2e-5,
+                    thermo=1e-4),
+}
+
+
+def _as_dtype(model, dtype):
+    """The same potential with coefficients (and MVS state) in `dtype`."""
+    import dataclasses
+
+    inv = model.inverse_active_set
+    return dataclasses.replace(
+        model,
+        coeffs=jax.tree_util.tree_map(lambda a: a.astype(dtype), model.coeffs),
+        inverse_active_set=None if inv is None else inv.astype(dtype),
+    )
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +66,7 @@ def cubic_system(mtp_level8):
 
 
 def _shard(model, pos, types, masses, cell, vel, nd,
-           skin=SKIN, steps_per_rebuild=10, **kw):
+           skin=SKIN, steps_per_rebuild=10, dtype="float64", **kw):
     n = len(pos)
     mesh = make_mesh(nd)
     part = partition_slabs(
@@ -50,43 +76,48 @@ def _shard(model, pos, types, masses, cell, vel, nd,
         # ~half a boundary plane per block, beyond the default 10% headroom
         capacity=int(np.ceil((n / nd * 1.4 + 16) / 8) * 8),
     )
-    sstate = ShardedState.from_partition(part, cell, mesh, dtype=jnp.float64)
+    sstate = ShardedState.from_partition(part, cell, mesh, dtype=dtype)
     sim = ShardedSimulation(
-        model, mesh, capacity=part.capacity, max_neighbors=64,
-        skin=skin, steps_per_rebuild=steps_per_rebuild, **kw,
+        _as_dtype(model, dtype), mesh, capacity=part.capacity,
+        max_neighbors=64, skin=skin, steps_per_rebuild=steps_per_rebuild,
+        **kw,
     )
     return sim, sstate
 
 
-@pytest.mark.parametrize("nd,giveback", [(2, False), (2, True), (4, True)])
-def test_sharded_window_nve_matches_single_chip(cubic_system, nd, giveback):
+@pytest.mark.parametrize(
+    "nd,dtype", [(2, "float64"), (2, "float32"), (4, "float64")]
+)
+def test_sharded_window_nve_matches_single_chip(cubic_system, nd, dtype):
     """20 NVE steps (2 rebuild blocks, migration active) through the full
-    window pipeline on 2/4 virtual shards == single-chip XLA trajectory."""
+    sharded pipeline on 2/4 virtual shards == single-device trajectory."""
     model, pos, types, masses, cell, state0 = cubic_system
     sim1 = Simulation(
         model, max_neighbors=64, skin=SKIN, steps_per_rebuild=10,
-        backend="xla", window=False,
     )
     ref, _ = sim1.run(state0, 20, ensemble="nve", dt=0.001)
 
     grid = grid_shape(cell, model.cutoff + SKIN)
     sim, sstate = _shard(
         model, pos, types, masses, cell, np.asarray(state0.velocities), nd,
-        grid=grid, giveback=giveback,
+        grid=grid, dtype=dtype,
     )
     out, flags = sim.run(sstate, 20, ensemble="nve", dt=0.001)
     assert not bool(flags.any()), flags
-    n = len(pos)
+    _assert_matches(out, ref, len(pos), _TOL[dtype])
+
+
+def _assert_matches(out, ref, n, tol):
     np.testing.assert_allclose(
         out.gather(np.asarray(out.positions), n),
-        np.asarray(ref.positions), atol=1e-10,
+        np.asarray(ref.positions), atol=tol["pos"],
     )
     np.testing.assert_allclose(
         out.gather(np.asarray(out.forces), n),
-        np.asarray(ref.forces), atol=1e-10,
+        np.asarray(ref.forces), atol=tol["force"],
     )
     assert float(out.potential_energy) == pytest.approx(
-        float(ref.potential_energy), abs=1e-9
+        float(ref.potential_energy), abs=tol["energy"]
     )
 
 
@@ -105,62 +136,55 @@ def npt_system(mtp_level8):
     return model, pos, types, masses, cell, state
 
 
+_NPT_KW = dict(temperature=280.0, pressure=0.0, tdamp=0.1, pdamp=0.5)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize(
-    "ensemble,kw,giveback",
+    "ensemble,kw",
     [
-        ("nvt", dict(temperature=280.0, tdamp=0.1), False),
-        ("nvt", dict(temperature=280.0, tdamp=0.1), True),
-        ("npt", dict(temperature=280.0, pressure=0.0, tdamp=0.1, pdamp=0.5),
-         False),
-        ("npt", dict(temperature=280.0, pressure=0.0, tdamp=0.1, pdamp=0.5),
-         True),
-        ("npt-aniso",
-         dict(temperature=280.0, pressure=0.0, tdamp=0.1, pdamp=0.5), False),
-        ("npt-aniso",
-         dict(temperature=280.0, pressure=0.0, tdamp=0.1, pdamp=0.5), True),
-        ("npt-tri",
-         dict(temperature=280.0, pressure=0.0, tdamp=0.1, pdamp=0.5), False),
-        ("npt-tri",
-         dict(temperature=280.0, pressure=0.0, tdamp=0.1, pdamp=0.5), True),
+        ("nvt", dict(temperature=280.0, tdamp=0.1)),
+        ("npt", _NPT_KW),
+        ("npt-aniso", _NPT_KW),
+        ("npt-tri", _NPT_KW),
     ],
 )
 def test_sharded_window_thermostatted_matches_single_chip(
-    npt_system, ensemble, kw, giveback
+    npt_system, ensemble, kw, dtype
 ):
     """Sharded NVT and MTK NPT (iso/aniso/tri) trajectories (incl. the
-    replicated thermostat/barostat chain state) == single-chip integrators,
-    under BOTH Newton give-back modes (the octant-class metadata under a
-    breathing cell on the halo-extended set is exactly the interaction this
-    pins). The psum'd virial drives a replicated barostat that rescales
-    cell+positions consistently on every shard."""
+    replicated thermostat/barostat chain state) == single-device
+    integrators. The psum'd virial drives a replicated barostat that
+    rescales cell+positions consistently on every shard."""
     model, pos, types, masses, cell, state0 = npt_system
-    import mtp_tpu.md.integrators as itg  # noqa: F401
+    import mtp_jax.md.integrators as itg  # noqa: F401
 
     sim1 = Simulation(
         model, max_neighbors=64, skin=SKIN, steps_per_rebuild=10,
-        backend="xla", window=False, grid_margin=1.08,
+        grid_margin=1.08,
     )
     ref, aux_ref = sim1.run(state0, 20, ensemble=ensemble, dt=0.001, **kw)
 
     grid = grid_shape(cell, (model.cutoff + SKIN) * 1.08)
     sim, sstate = _shard(
         model, pos, types, masses, cell, np.asarray(state0.velocities), 2,
-        grid=grid, giveback=giveback, compute_virial=True,
+        grid=grid, compute_virial=True, dtype=dtype,
     )
     out, flags = sim.run(sstate, 20, ensemble=ensemble, dt=0.001, **kw)
     assert not bool(flags.any()), flags
     n = len(pos)
+    tol = _TOL[dtype]
     np.testing.assert_allclose(
         out.gather(np.asarray(out.positions), n),
-        np.asarray(ref.positions), atol=1e-10,
+        np.asarray(ref.positions), atol=tol["pos"],
     )
     np.testing.assert_allclose(
-        np.asarray(out.cell), np.asarray(ref.cell), atol=1e-12
+        np.asarray(out.cell), np.asarray(ref.cell), atol=tol["cell"]
     )
     th = np.asarray(out.thermo)
     if ensemble == "nvt":
         ref_vec = np.concatenate([aux_ref.xi, aux_ref.eta])
-        np.testing.assert_allclose(th[:4], ref_vec, atol=1e-12)
+        np.testing.assert_allclose(th[:4], ref_vec, atol=tol["thermo"])
     else:
         chains = np.concatenate(
             [
@@ -170,14 +194,14 @@ def test_sharded_window_thermostatted_matches_single_chip(
                 np.asarray(aux_ref.baro_thermo.eta),
             ]
         )
-        np.testing.assert_allclose(th[:8], chains, atol=1e-12)
+        np.testing.assert_allclose(th[:8], chains, atol=tol["thermo"])
         bv = np.asarray(aux_ref.baro_v)
         if ensemble == "npt":
-            np.testing.assert_allclose(th[8], bv, atol=1e-12)
+            np.testing.assert_allclose(th[8], bv, atol=tol["thermo"])
         else:
             voigt = [bv[0, 0], bv[1, 1], bv[2, 2], bv[0, 1], bv[0, 2],
                      bv[1, 2]]
-            np.testing.assert_allclose(th[8:14], voigt, atol=1e-12)
+            np.testing.assert_allclose(th[8:14], voigt, atol=tol["thermo"])
 
 
 def test_sharded_window_stale_flag(cubic_system):
@@ -209,14 +233,13 @@ def test_sharded_window_run_recovers_neighbor_overflow(cubic_system):
     model, pos, types, masses, cell, state0 = cubic_system
     sim1 = Simulation(
         model, max_neighbors=64, skin=SKIN, steps_per_rebuild=10,
-        backend="xla", window=False,
     )
     ref, _ = sim1.run(state0, 10, ensemble="nve", dt=0.001)
 
     grid = grid_shape(cell, model.cutoff + SKIN)
     sim, sstate = _shard(
         model, pos, types, masses, cell, np.asarray(state0.velocities), 2,
-        grid=grid, giveback=False,
+        grid=grid,
     )
     sim.max_neighbors = 40  # fcc a=4.0 has 42 in-cutoff neighbors
     sim._reconfigure()
@@ -237,7 +260,7 @@ def test_sharded_window_run_recovers_staleness(cubic_system):
     grid = grid_shape(cell, model.cutoff + 0.12)
     sim, sstate = _shard(
         model, pos, types, masses, cell, np.asarray(state0.velocities), 2,
-        grid=grid, giveback=False, skin=0.12, steps_per_rebuild=40,
+        grid=grid, skin=0.12, steps_per_rebuild=40,
     )
     out, flags = sim.run(sstate, 40, ensemble="nve", dt=0.001)
     assert not bool(flags.any())
@@ -247,7 +270,7 @@ def test_sharded_window_run_recovers_staleness(cubic_system):
     sim2, sstate2 = _shard(
         model, pos, types, masses, cell,
         np.asarray(state0.velocities) * 50.0, 2,
-        grid=grid_shape(cell, model.cutoff + 0.01), giveback=False,
+        grid=grid_shape(cell, model.cutoff + 0.01),
         skin=0.01, steps_per_rebuild=2,
     )
     with pytest.raises(RuntimeError, match="steps_per_rebuild=1"):
@@ -263,9 +286,9 @@ def al_system(cubic_system):
     (the pattern of test_parallel.test_sharded_grades_match_single_chip)."""
     import dataclasses
 
-    from mtp_tpu.al.grades import candidate_vectors
-    from mtp_tpu.al.maxvol import build_mvs
-    from mtp_tpu.ops.neighbors import build_neighbor_list_bruteforce
+    from mtp_jax.al.grades import candidate_vectors
+    from mtp_jax.al.maxvol import build_mvs
+    from mtp_jax.ops.neighbors import build_neighbor_list_bruteforce
 
     model, pos, types, masses, cell, state0 = cubic_system
     rng = np.random.default_rng(7)
@@ -291,16 +314,16 @@ def al_system(cubic_system):
 
 @pytest.mark.parametrize("nd,cfg_mode", [(2, False), (4, False), (2, True)])
 def test_sharded_window_grades_match_single_chip(al_system, nd, cfg_mode):
-    """ShardedSimulation.grade_eval (fused candidates kernel rank-local,
+    """ShardedSimulation.grade_eval (candidates path rank-local,
     reusing the block's neighbor ctx, pmax/psum collectives) == single-chip
     XLA candidate path, in BOTH observation modes — plus the force-refresh
     contract: its forces/energy match the plain force evaluation (r3
     VERDICT missing item 1)."""
     import dataclasses
 
-    from mtp_tpu.al.grades import candidate_vectors, cfg_grade, nbh_grades
-    from mtp_tpu.models.mtp import mtp_energy_forces
-    from mtp_tpu.ops.neighbors import build_neighbor_list_bruteforce
+    from mtp_jax.al.grades import candidate_vectors, cfg_grade, nbh_grades
+    from mtp_jax.models.mtp import mtp_energy_forces
+    from mtp_jax.ops.neighbors import build_neighbor_list_bruteforce
 
     model_al, pos, types, masses, cell, state0 = al_system
     if cfg_mode:
@@ -329,7 +352,7 @@ def test_sharded_window_grades_match_single_chip(al_system, nd, cfg_mode):
     grid = grid_shape(cell, model_al.cutoff + SKIN)
     sim, sstate = _shard(
         model_al, pos, types, masses, cell, np.zeros_like(pos), nd,
-        grid=grid, giveback=True,
+        grid=grid,
     )
     state, ctx, f4 = sim.rebuild(sstate)
     assert not any(bool(f) for f in jax.device_get(f4))
@@ -349,23 +372,22 @@ def test_sharded_window_grades_match_single_chip(al_system, nd, cfg_mode):
 
 
 def test_run_sharded_with_extrapolation(al_system, tmp_path):
-    """End-to-end sharded AL on the window engine: grade evals reuse the
+    """End-to-end sharded AL on the sharded engine: grade evals reuse the
     MD blocks' neighbor ctx, force refresh keeps the trajectory EXACTLY the
     plain-NVE one, the preselected stream fills via the id-ordered gather,
     and break flushes first."""
-    from mtp_tpu.al.driver import (
+    from mtp_jax.al.driver import (
         BreakThresholdExceeded,
         ShardedExtrapolationMonitor,
         run_sharded_with_extrapolation,
     )
-    from mtp_tpu.io.cfg_file import read_cfgs
+    from mtp_jax.io.cfg_file import read_cfgs
 
     model_al, pos, types, masses, cell, state0 = al_system
     n = len(pos)
 
     sim1 = Simulation(
         model_al, max_neighbors=64, skin=SKIN, steps_per_rebuild=5,
-        backend="xla", window=False,
     )
     ref, _ = sim1.run(state0, 12, ensemble="nve", dt=0.001)
 
@@ -373,7 +395,7 @@ def test_run_sharded_with_extrapolation(al_system, tmp_path):
     sim, sstate = _shard(
         model_al, pos, types, masses, cell,
         np.asarray(state0.velocities), 2,
-        grid=grid, giveback=True, steps_per_rebuild=5,
+        grid=grid, steps_per_rebuild=5,
     )
     out = tmp_path / "preselected.cfg"
     mon = ShardedExtrapolationMonitor(
@@ -404,7 +426,7 @@ def test_run_sharded_with_extrapolation(al_system, tmp_path):
     sim2, sstate2 = _shard(
         model_al, pos, types, masses, cell,
         np.asarray(state0.velocities), 2,
-        grid=grid, giveback=True, steps_per_rebuild=5,
+        grid=grid, steps_per_rebuild=5,
     )
     mon2 = ShardedExtrapolationMonitor(
         model_al, sim2.mesh, capacity=sim2.capacity, grid=grid, n_atoms=n,
@@ -422,18 +444,18 @@ def test_sharded_observables(cubic_system, tmp_path):
     """gather_md_state + device-side scalar observables give multi-chip runs
     the single-chip output surface (thermo/dump/checkpoint; r3 VERDICT
     item 9)."""
-    from mtp_tpu.md.output import (
+    from mtp_jax.md.output import (
         ThermoLogger,
         XYZDumpWriter,
         load_checkpoint,
         save_checkpoint,
     )
-    from mtp_tpu.md.state import (
+    from mtp_jax.md.state import (
         kinetic_energy,
         pressure_of,
         temperature_of,
     )
-    from mtp_tpu.parallel.observables import (
+    from mtp_jax.parallel.observables import (
         gather_md_state,
         sharded_kinetic_energy,
         sharded_pressure,
@@ -445,7 +467,7 @@ def test_sharded_observables(cubic_system, tmp_path):
     grid = grid_shape(cell, model.cutoff + SKIN)
     sim, sstate = _shard(
         model, pos, types, masses, cell, np.asarray(state0.velocities), 2,
-        grid=grid, giveback=False, compute_virial=True,
+        grid=grid, compute_virial=True,
     )
     sstate, flags = sim.run(sstate, 10, ensemble="nve", dt=0.001)
     assert not bool(flags.any())
@@ -482,7 +504,6 @@ def test_sharded_observables(cubic_system, tmp_path):
     # trajectory parity with single-chip through the gather
     sim1 = Simulation(
         model, max_neighbors=64, skin=SKIN, steps_per_rebuild=10,
-        backend="xla", window=False,
     )
     ref, _ = sim1.run(state0, 10, ensemble="nve", dt=0.001)
     np.testing.assert_allclose(
@@ -508,9 +529,10 @@ def brick_system(mtp_level8):
     return model, pos, types, masses, cell, state
 
 
-def _brick(model, pos, types, masses, cell, vel, shape, **kw):
-    from mtp_tpu.parallel.domain import partition_bricks
-    from mtp_tpu.parallel.sharded_md import make_mesh_2d
+def _brick(model, pos, types, masses, cell, vel, shape, dtype="float64",
+           **kw):
+    from mtp_jax.parallel.domain import partition_bricks
+    from mtp_jax.parallel.sharded_md import make_mesh_2d
 
     n = len(pos)
     mesh = make_mesh_2d(shape)
@@ -519,16 +541,16 @@ def _brick(model, pos, types, masses, cell, vel, shape, **kw):
         cutoff=model.cutoff + SKIN,
         capacity=int(np.ceil((n / (shape[0] * shape[1]) * 1.5 + 16) / 8) * 8),
     )
-    sstate = ShardedState.from_partition(part, cell, mesh, dtype=jnp.float64)
+    sstate = ShardedState.from_partition(part, cell, mesh, dtype=dtype)
     sim = ShardedSimulation(
-        model, mesh, capacity=part.capacity, max_neighbors=64,
-        skin=SKIN, steps_per_rebuild=10, **kw,
+        _as_dtype(model, dtype), mesh, capacity=part.capacity,
+        max_neighbors=64, skin=SKIN, steps_per_rebuild=10, **kw,
     )
     return sim, sstate
 
 
-@pytest.mark.parametrize("giveback", [False, True])
-def test_brick_mesh_nve_matches_single_chip(brick_system, giveback):
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_brick_mesh_nve_matches_single_chip(brick_system, dtype):
     """20 NVE steps on a (2,2) brick mesh (two-stage halo exchange, corner
     ghosts via the second hop, two-hop force give-back, per-axis migration)
     == single-chip trajectory (r3 VERDICT missing item 2: multi-dimensional
@@ -536,39 +558,27 @@ def test_brick_mesh_nve_matches_single_chip(brick_system, giveback):
     model, pos, types, masses, cell, state0 = brick_system
     sim1 = Simulation(
         model, max_neighbors=64, skin=SKIN, steps_per_rebuild=10,
-        backend="xla", window=False,
     )
     ref, _ = sim1.run(state0, 20, ensemble="nve", dt=0.001)
 
     grid = grid_shape(cell, model.cutoff + SKIN)
     sim, sstate = _brick(
         model, pos, types, masses, cell, np.asarray(state0.velocities),
-        (2, 2), grid=grid, giveback=giveback,
+        (2, 2), grid=grid, dtype=dtype,
     )
     out, flags = sim.run(sstate, 20, ensemble="nve", dt=0.001)
     assert not bool(flags.any()), flags
-    n = len(pos)
-    np.testing.assert_allclose(
-        out.gather(np.asarray(out.positions), n),
-        np.asarray(ref.positions), atol=1e-10,
-    )
-    np.testing.assert_allclose(
-        out.gather(np.asarray(out.forces), n),
-        np.asarray(ref.forces), atol=1e-10,
-    )
-    assert float(out.potential_energy) == pytest.approx(
-        float(ref.potential_energy), abs=1e-9
-    )
+    _assert_matches(out, ref, len(pos), _TOL[dtype])
 
 
 def test_brick_mesh_nvt_and_grades(brick_system):
-    """(2,2) brick mesh: NHC-NVT trajectory parity + window-engine grade
+    """(2,2) brick mesh: NHC-NVT trajectory parity + sharded grade
     eval (pmax over both mesh axes) vs single-chip."""
     import dataclasses
 
-    from mtp_tpu.al.grades import candidate_vectors, nbh_grades
-    from mtp_tpu.al.maxvol import build_mvs
-    from mtp_tpu.ops.neighbors import build_neighbor_list_bruteforce
+    from mtp_jax.al.grades import candidate_vectors, nbh_grades
+    from mtp_jax.al.maxvol import build_mvs
+    from mtp_jax.ops.neighbors import build_neighbor_list_bruteforce
 
     model, pos, types, masses, cell, state0 = brick_system
     rng = np.random.default_rng(11)
@@ -592,7 +602,6 @@ def test_brick_mesh_nvt_and_grades(brick_system):
 
     sim1 = Simulation(
         model_al, max_neighbors=64, skin=SKIN, steps_per_rebuild=10,
-        backend="xla", window=False,
     )
     ref, _ = sim1.run(
         state0, 20, ensemble="nvt", dt=0.001, temperature=280.0, tdamp=0.1
@@ -601,7 +610,7 @@ def test_brick_mesh_nvt_and_grades(brick_system):
     grid = grid_shape(cell, model_al.cutoff + SKIN)
     sim, sstate = _brick(
         model_al, pos, types, masses, cell, np.asarray(state0.velocities),
-        (2, 2), grid=grid, giveback=True,
+        (2, 2), grid=grid,
     )
     out, flags = sim.run(
         sstate, 20, ensemble="nvt", dt=0.001, temperature=280.0, tdamp=0.1
@@ -679,7 +688,7 @@ def test_run_sharded_with_extrapolation_npt(al_system):
     refresh is computed at the segment's final positions — exactly where
     the carried virial was computed — so the AL run must reproduce the
     plain NPT trajectory."""
-    from mtp_tpu.al.driver import (
+    from mtp_jax.al.driver import (
         ShardedExtrapolationMonitor,
         run_sharded_with_extrapolation,
     )
@@ -691,7 +700,7 @@ def test_run_sharded_with_extrapolation_npt(al_system):
 
     sim1 = Simulation(
         model_al, max_neighbors=64, skin=SKIN, steps_per_rebuild=5,
-        backend="xla", window=False, compute_virial=True,
+        compute_virial=True,
     )
     ref, _ = sim1.run(state0, 12, **kw)
 
@@ -699,7 +708,7 @@ def test_run_sharded_with_extrapolation_npt(al_system):
     sim, sstate = _shard(
         model_al, pos, types, masses, cell,
         np.asarray(state0.velocities), 2,
-        grid=grid, giveback=True, steps_per_rebuild=5, compute_virial=True,
+        grid=grid, steps_per_rebuild=5, compute_virial=True,
     )
     mon = ShardedExtrapolationMonitor(
         model_al, sim.mesh, capacity=sim.capacity, grid=grid, n_atoms=n,
@@ -719,21 +728,21 @@ def test_run_sharded_with_extrapolation_npt(al_system):
 
 def test_brick_mesh_npt_matches_single_chip(brick_system):
     """(2,2) brick mesh under iso-MTK NPT: the tensor/scalar barostat
-    reductions psum over BOTH mesh axes and the shrinking cell's octant
-    metadata must stay exact across the two-stage halo."""
+    reductions psum over BOTH mesh axes and stay exact across the
+    two-stage halo."""
     model, pos, types, masses, cell, state0 = brick_system
     kw = dict(ensemble="npt", dt=0.001, temperature=300.0, pressure=0.0,
               tdamp=0.05, pdamp=0.5)
     sim1 = Simulation(
         model, max_neighbors=64, skin=SKIN, steps_per_rebuild=10,
-        backend="xla", window=False, compute_virial=True,
+        compute_virial=True,
     )
     ref, _ = sim1.run(state0, 20, **kw)
 
     grid = grid_shape(cell, model.cutoff + SKIN)
     sim, sstate = _brick(
         model, pos, types, masses, cell, np.asarray(state0.velocities),
-        (2, 2), grid=grid, giveback=True, compute_virial=True,
+        (2, 2), grid=grid, compute_virial=True,
     )
     out, flags = sim.run(sstate, 20, **kw)
     assert not bool(flags.any()), flags

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mtp_tpu.md.simulation import Simulation, make_lattice
-from mtp_tpu.md.state import init_state, thermalize
-from mtp_tpu.models.mtp import MTPModel
-from mtp_tpu.ops.neighbors import grid_shape
+from mtp_jax.md.simulation import Simulation, make_lattice
+from mtp_jax.md.state import init_state, thermalize
+from mtp_jax.models.mtp import MTPModel
+from mtp_jax.ops.neighbors import grid_shape
 
 
 def test_run_fused_matches_host_loop(mtp_level8, rng):
@@ -45,7 +45,7 @@ def test_run_fused_matches_host_loop(mtp_level8, rng):
 
 def test_geometry_overflow_flag(mtp_level8, rng):
     """Shrinking the cell past the static grid's validity trips overflow."""
-    from mtp_tpu.ops.neighbors import build_neighbor_list, grid_shape
+    from mtp_jax.ops.neighbors import build_neighbor_list, grid_shape
 
     L = 24.0
     cell = np.diag([L, L, L])

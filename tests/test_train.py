@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mtp_tpu.io.basis_gen import make_mtp
-from mtp_tpu.io.cfg_file import Config
-from mtp_tpu.md.simulation import make_lattice
-from mtp_tpu.models.mtp import MTPCoeffs, MTPModel
-from mtp_tpu.train.fit import Dataset, fit, linear_warm_start, loss_fn, make_dataset
-from mtp_tpu.utils import golden
+from mtp_jax.io.basis_gen import make_mtp
+from mtp_jax.io.cfg_file import Config
+from mtp_jax.md.simulation import make_lattice
+from mtp_jax.models.mtp import MTPCoeffs, MTPModel
+from mtp_jax.train.fit import Dataset, fit, linear_warm_start, loss_fn, make_dataset
+from mtp_jax.utils import golden
 
 
 @pytest.fixture(scope="module")

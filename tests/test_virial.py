@@ -9,9 +9,9 @@ pair_mtp.cpp:257-266) to actual thermodynamics.
 import numpy as np
 import pytest
 
-from mtp_tpu.io.basis_gen import make_mtp
-from mtp_tpu.md.simulation import make_lattice
-from mtp_tpu.utils import golden
+from mtp_jax.io.basis_gen import make_mtp
+from mtp_jax.md.simulation import make_lattice
+from mtp_jax.utils import golden
 
 
 @pytest.mark.parametrize("seed", [0, 3])
